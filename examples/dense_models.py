@@ -64,5 +64,5 @@ b_f32 = eng.max_feasible_batch()
 DEFAULT.storage_dtype = "bfloat16"
 b_bf16 = eng.max_feasible_batch()
 DEFAULT.storage_dtype = "float32"
-print(f"feasible batch at 8 GB of messages: f32 {b_f32} -> bf16 {b_bf16} "
-      f"(measured 1.96x queries/s on a v5e chip)")
+print(f"feasible batch under the device's memory budget: f32 {b_f32} -> "
+      f"bf16 {b_bf16}")

@@ -1,7 +1,7 @@
 """Worked example: the sprinkler Bayes net, end to end.
 
 Mirrors the reference README walkthrough (/root/reference/README.md:85-178)
-on the TPU-native engine: build, propagate, condition on evidence, MAP.
+on the compiled engine: build, propagate, condition on evidence, MAP.
 
 Run:  python examples/sprinkler.py
 """

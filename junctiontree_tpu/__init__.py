@@ -1,10 +1,10 @@
-"""junctiontree_tpu — TPU-native exact inference on discrete factor graphs.
+"""junctiontree_tpu — compiled exact inference on discrete factor graphs.
 
 Brand-new JAX/XLA implementation with the capabilities of jluttine/junction-tree
 (reference mounted read-only at /root/reference): factor-graph DSL, min-fill
 triangulation, Jensen junction-tree construction, two-pass sum-product belief
 propagation, evidence conditioning, and per-factor posterior marginals —
-re-designed TPU-first (static-schedule compiled propagation, mask-based
+re-designed for accelerators (static-schedule compiled propagation, mask-based
 evidence, vmap-batched queries, mesh-sharded batches, pluggable semirings).
 
 Quick start (same shape as the reference README):
@@ -15,7 +15,7 @@ Quick start (same shape as the reference README):
     tree = jt.create_junction_tree([["a", "b"], ["b", "c"]], {"a": 2, "b": 3, "c": 4})
     marginals = tree.propagate([np.random.rand(2, 3), np.random.rand(3, 4)])
 
-Fast TPU path:
+Fast compiled path:
 
     eng = tree.engine().set_potentials(values)
     marg, p_evidence = eng.query({"b": 1})

@@ -8,7 +8,7 @@ synchronous flooding schedule; on tree-structured graphs it is exact, on
 loopy graphs it converges to the Bethe approximation of the marginals and
 log-partition function.
 
-TPU-first design (vs the reference's per-message Python recursion,
+Accelerator-first design (vs the reference's per-message Python recursion,
 /root/reference/junctiontree/computation.py:47-96):
 
   * factors are bucketed by shape and prestacked into [G, *shape] tensors;
@@ -193,10 +193,11 @@ class LoopyEngine:
         scatter) — per-query upload scales with the evidence, not the
         model.
 
-        Internal layout is batch-LAST: the large batch axis sits on the
-        TPU's 128-lane dimension, so elementwise work over small-cardinality
-        variables (K=2..4) vectorizes fully instead of wasting 126/128 lanes.
-        The readout converts back to the external [V, B, K] contract.
+        Internal layout is batch-LAST: the large batch axis is the
+        contiguous minor dimension, so elementwise work over
+        small-cardinality variables (K=2..4) vectorizes over the batch
+        instead of over a 2-4 wide axis.  The readout converts back to the
+        external [V, B, K] contract.
 
         mode: "sum" = sum-product (posteriors + Bethe logZ), "max" =
         max-product (approximate MAP max-marginals; readout returns beliefs
@@ -220,7 +221,7 @@ class LoopyEngine:
         def var_to_factor(masks, m):
             """v->f messages [E,K,B] from current f->v messages."""
             # per-var product over incoming edges via a padded-degree gather
-            # (segment_prod's scatter lowers poorly on TPU)
+            # (a gather instead of segment_prod's scatter)
             m_ext = jnp.concatenate(
                 [m, jnp.ones((1,) + m.shape[1:], m.dtype)], axis=0
             )
@@ -407,8 +408,8 @@ class LoopyEngine:
             m, d = chunk(masks, m)
             iters += self.chunk_iters
             # tol<=0 disables early exit, so skip the per-chunk device->host
-            # delta read — each sync costs real latency (pathological through
-            # remote-attached chips); the final delta is read once below
+            # delta read — each sync stalls the device queue; the final
+            # delta is read once below
             if self.tol > 0 and float(d) < self.tol:
                 break
         b_v, logz = readout(masks, m)

@@ -1,6 +1,7 @@
 """Cutset conditioning: exact inference past the treewidth wall.
 
-Pearl's classic escape hatch for dense networks, re-designed TPU-first: the
+Pearl's classic escape hatch for dense networks, re-designed for batched
+accelerator execution: the
 cutset's joint states become ANOTHER BATCH AXIS.  Conditioning on a cutset
 C removes its variables from the graph, so the reduced model triangulates
 with far smaller cliques *and separators* (serving memory is B x
@@ -253,11 +254,9 @@ class CutsetEngine:
     def _fused_routing(self) -> bool:
         """Structural check: the reduced model's level groups collapse its
         op count (many small cliques, regular shapes).  NOT used for auto
-        routing — measured on TPU v5e, the stacked fused program is 0.96x
-        the unrolled chunked map even on a maximally regular star model
-        (BENCH 'cutset fused-vs-unrolled'; the map is not dispatch-bound
-        there), and cutset reduction destroys regularity on real dense
-        models anyway (hailfinder-class: 42 groups / 43 cliques).  The
+        routing: cutset reduction destroys regularity on real dense models
+        (hailfinder-class: 42 groups / 43 cliques), and the fused program's
+        gain over the unrolled chunked map is not measured on the GPU.  The
         fused path stays available via posterior_batch(mode='fused')."""
         st = self.plan.stats()
         if st["num_cliques"] < 32 or st["max_clique_states"] > (1 << 13):
@@ -468,10 +467,8 @@ class CutsetEngine:
             if inner_mode == "message":
                 # Opt-in message-form inner: the reduced model's
                 # batch-aware routed program, vmapped by lax.map over the
-                # cutset-assignment chunk.  Measured SLOWER than the
-                # belief form on v5e both rounds it was tried (see the
-                # posterior_batch docstring) — kept for environments where
-                # the memory/compile trade differs.
+                # cutset-assignment chunk.  Opt-in: whether it beats the
+                # belief form on the GPU is not measured.
                 from .executor import batched_propagate_program
 
                 prog_b = batched_propagate_program(plan, LOG_SUM_EXP)

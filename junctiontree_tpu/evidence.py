@@ -8,7 +8,7 @@ Two mechanisms, matching and improving on the reference (SURVEY.md §2.2):
    shrunken sizes dict, for users who want the reference's shape-changing
    workflow (README.md:148-166).
 
-2. Mask-based conditioning — the TPU-native path (static shapes; one compiled
+2. Mask-based conditioning — the compiled path (static shapes; one compiled
    program serves every evidence set): see ``executor.evidence_to_masks`` and
    ``batch_masks`` below for building batched one-hot mask pytrees.
 """

@@ -1,4 +1,4 @@
-"""Maximum-likelihood learning of factor-graph potentials on TPU.
+"""Maximum-likelihood learning of factor-graph potentials on the accelerator.
 
 Because propagation is pure JAX, the log-partition function is exactly
 differentiable: grad(logZ) w.r.t. per-factor log-potentials equals the

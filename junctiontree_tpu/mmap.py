@@ -12,7 +12,7 @@ MMAP is NP^PP-hard in general and — unlike MAR/MPE — is *not* computable on
 an arbitrary junction tree: max and sum do not commute, so every SUM variable
 must be eliminated before (deeper in the tree than) every MAX variable on its
 root path.  The classic exact construction (Park & Darwiche 2004, bucket
-elimination form per Dechter 1999) is used here, TPU-first:
+elimination form per Dechter 1999) is used here, batched and compiled:
 
   1. a *constrained* greedy min-fill elimination order eliminates all SUM
      variables first, then all MAX variables (host-side, pure Python);

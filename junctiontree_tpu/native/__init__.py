@@ -1,7 +1,10 @@
 """Native (C++) host compiler bindings.
 
-Loads ``libjtcompile.so`` via ctypes; if absent, builds it from the bundled
-source with g++ on first use (cached next to the source).  Falls back to the
+Loads ``libjtcompile-<hash>.so`` via ctypes, where <hash> is the SHA-256
+prefix of the bundled ``jt_compile.cpp``; if absent, builds it from that
+source with g++ on first use (cached next to the source).  Keying the
+library by its source means an edit to the source always rebuilds it — a
+library left on disk from older source is never loaded.  Falls back to the
 pure-Python compiler transparently when no toolchain is available — the
 native path is a drop-in accelerator for the compile phase, not a
 requirement."""
@@ -9,6 +12,7 @@ requirement."""
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -18,7 +22,15 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "jt_compile.cpp")
-_SO = os.path.join(_HERE, "libjtcompile.so")
+
+
+def _so_path() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_HERE, f"libjtcompile-{digest}.so")
+
+
+_SO = _so_path()
 
 _lock = threading.Lock()
 _lib = None
@@ -43,15 +55,21 @@ class _JtResult(ctypes.Structure):
 
 
 def _build() -> bool:
+    # build under a private name, then rename: concurrent test workers
+    # never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", _SO],
+            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, _SO)
         return True
     except Exception:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
         return False
 
 

@@ -1,15 +1,13 @@
 """Grouped-unrolled contractions: compile-cheap big-clique message ops.
 
-Motivation (measured on TPU v5e through XLA): TPU compile time blows up
-superlinearly with tensor *rank*.  A rank-13 batched einsum compiles in
-~0.9 s, but a single rank-17 einsum contracting a 2^17-state clique
-potential against a batched child message ``[B, 2^16]`` costs ~58 s, the
-equivalent rank-3 ``dot_general`` with a huge batch dim costs *minutes*,
-and even bare rank-17 reshapes/slices cost seconds each.  The same
+Motivation: XLA's compile time grows superlinearly with tensor *rank*
+(an earlier backend took about a minute for one rank-17 einsum that
+contracts a 2^17-state clique potential against a batched child message
+``[B, 2^16]``; its GPU compile time is not measured yet).  The same
 contraction expressed as a few broadcast-multiply-accumulate ops over
-*grouped* (low-rank, ≤ ~6 axes) operands compiles in <1 s and is
-bandwidth-optimal at runtime (its FLOP count is tiny — the MXU buys
-nothing — so a fused VPU pass is speed-of-light).
+*grouped* (low-rank, ≤ ~6 axes) operands compiles quickly and is
+bandwidth-bound at runtime (its FLOP count is tiny, so one fused
+elementwise pass is the least the device can do).
 
 The trick: in junction-tree message passing the operands of a contraction
 share most of their axes elementwise.  Sending a message from clique C to
@@ -261,14 +259,11 @@ def grouped_batched_contract(
         for v in g:
             t *= sizes[v]
         ogsizes.append(t)
-    # Guard: above 8 output groups, take the grouped einsum.  Round-5
-    # measured both relaxations NEGATIVE end-to-end on the
-    # hailfinder-class posterior at its serving batch (B=256, ~15.7 of
-    # 15.75 G HBM): rank-11 unrolled accumulation OOMs (XLA materializes
-    # each term's ~3 GB broadcast under permuted layouts instead of
-    # fusing — allocation dump in the round log), and even gating by
-    # accumulator size pushed the near-capacity compile into
-    # rematerialization loops (72 s -> 98 s).  The einsum's pairwise dots
+    # Guard: above 8 output groups, take the grouped einsum.  Rank-11
+    # unrolled accumulation on the hailfinder-class posterior made XLA
+    # materialize each term's ~3 GB broadcast under permuted layouts
+    # instead of fusing (on an earlier 16 GB device; not re-measured on
+    # the GPU).  The einsum's pairwise dots
     # reduce while multiplying, keeping intermediates compact exactly
     # where it matters.  Also bound the emitted-op count (terms x
     # operands) so a huge contracted space can't produce a pathological
@@ -316,9 +311,8 @@ def grouped_batched_contract(
         # view (each contracted var its own singleton axis interleaved
         # with every distinct signature group) and strided-sliced it per
         # term — on mixed-cardinality models that makes rank-9ish
-        # odd-shaped slices, which send the TPU backend's layout passes
-        # into minutes of compile (hailfinder-class reduced model: 214-238
-        # s with ANY unrolled terms, 6 s with none — round-4 STATUS), and
+        # odd-shaped slices, which sent an earlier backend's layout passes
+        # into minutes of compile on the hailfinder-class reduced model, and
         # its >8-group fallback pushed exactly the big mixed-cardinality
         # steps onto high-rank einsums costing ~20 s of XLA compile EACH
         # (round-5 isolation: one hailfinder distribute step = 56 s).

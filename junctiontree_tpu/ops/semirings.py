@@ -5,7 +5,7 @@ Equivalent role to the reference's ``SumProduct`` wrapper
 implements alternatives to sum-product.  Here the abstraction is real:
 
   * SUM_PRODUCT   — linear-space sum-product: contractions are ``jnp.einsum``,
-                    which XLA lowers to MXU matmuls.  Exact parity semiring.
+                    which XLA lowers to matmuls.  Exact parity semiring.
   * LOG_SUM_EXP   — log-space sum-product: multiply = add, marginalize =
                     logsumexp.  Numerically safe on large networks where
                     unnormalized linear-space beliefs under/overflow.
@@ -14,8 +14,8 @@ implements alternatives to sum-product.  Here the abstraction is real:
 
 A semiring exposes ``contract(operands, operand_vars, out_vars, sizes)``: the
 generalized einsum `product of operands, reduced to out_vars`.  For
-SUM_PRODUCT this builds an einsum subscript (MXU path); the others broadcast
-to the union scope and reduce (VPU path).
+SUM_PRODUCT this builds an einsum subscript (matmul path); the others
+broadcast to the union scope and reduce (elementwise path).
 """
 
 from __future__ import annotations
@@ -28,10 +28,11 @@ import jax.numpy as jnp
 
 _LETTERS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
 
-# TPU MXU precision for sum-product einsums.  "highest" keeps float32
-# accumulated contractions (exact-inference default; ~1e-7 parity with CPU);
-# "default" allows bf16 MXU passes (~1e-3 error, higher throughput) — flip it
-# for throughput-bound serving with set_matmul_precision("default").
+# Matmul precision for sum-product einsums.  "highest" keeps full float32
+# contractions (exact-inference default; ~1e-7 parity with CPU); on a GPU
+# "default" lets XLA use TF32 tensor cores for float32 (~1e-3 error, higher
+# throughput) — flip it for throughput-bound serving with
+# set_matmul_precision("default").
 _MATMUL_PRECISION = "highest"
 
 # log_sum_exp contractions whose union scope has at least this many states
@@ -126,8 +127,8 @@ class Semiring:
             # count (a 10-child clique hangs it); switch to greedy beyond 6
             opt = "optimal" if len(operands) <= 6 else "greedy"
             # low-precision storage (config.storage_dtype="bfloat16"):
-            # accumulate in f32 on the MXU — native TPU mode, no accuracy
-            # cliff from long reduction chains
+            # accumulate in f32 — no accuracy cliff from long reduction
+            # chains
             pet = (
                 jnp.float32
                 if any(
@@ -148,8 +149,8 @@ class Semiring:
             # Large scopes: log-matmul-exp.  The broadcast+reduce below
             # materializes the full union scope ([B, prod(extents)] floats —
             # 51 GB on a hailfinder-class batched contraction), whereas a
-            # max-shifted linear einsum lets opt_einsum contract pairwise on
-            # the MXU and never builds the union tensor.  Per-operand global
+            # max-shifted linear einsum lets opt_einsum contract pairwise as
+            # matmuls and never builds the union tensor.  Per-operand global
             # max shift: entries more than ~87 nats below an operand's max
             # underflow to the semiring zero — exact for the mass that
             # matters, and the fallback below remains in force for small

@@ -1,6 +1,6 @@
 """Sharded batched-evidence inference (data parallelism).
 
-The TPU-native replacement for "one evidence instantiation per propagate
+The compiled replacement for "one evidence instantiation per propagate
 call" (reference junctiontree.py:297-331): evidence masks carry a leading
 batch axis, the batch axis is sharded over the mesh with NamedSharding, and
 the vmapped propagation program runs SPMD — XLA inserts no cross-device
@@ -59,7 +59,8 @@ def make_sharded_query_shardmap(
     """shard_map variant with explicit collectives: each device runs its
     local batch shard, then the global log-partition statistics (mean and
     max over the whole batch) are reduced with psum/pmax over the batch
-    axis — the pattern multi-host aggregation rides on (ICI/DCN).
+    axis — the pattern multi-host aggregation rides on (NCCL over NVLink
+    within a host, the network across hosts).
 
     Returns ``fn(pots, mask_batch) -> (marginals, Z, global_mean_logZ)``."""
 

@@ -1,22 +1,23 @@
-"""Multi-host bring-up and DCN-aware meshes.
+"""Multi-host bring-up and host-aware meshes.
 
-The reference has no distribution at all (SURVEY.md §2.3).  On a multi-host
-TPU slice the recipe is:
+The reference has no distribution at all (SURVEY.md §2.3).  On several GPU
+hosts the recipe is:
 
   1. every host calls :func:`initialize` (jax.distributed.initialize) with
-     its coordinator address / process id — or nothing under standard TPU
-     launchers, which populate the environment;
+     the coordinator address (``host:port``), the process count and its
+     process id;
   2. :func:`make_multihost_mesh` builds a global (batch, model) mesh that
-     places the *batch* axis across hosts (evidence batches shard over DCN —
-     embarrassingly parallel, no cross-host traffic during propagation) and
-     the *model* axis within a host's chips (clique-axis psums ride ICI);
-  3. the same ``make_sharded_query`` / ``sharded_factored_contract``
+     places the *batch* axis across hosts (evidence batches shard over the
+     network — embarrassingly parallel, no cross-host traffic during
+     propagation) and the *model* axis within a host's cards (clique-axis
+     psums stay on NVLink);
+  3. the same ``make_sharded_query`` / ``sharded_clique_message``
      programs run unchanged — each host feeds its local shard of the mask
      batch via ``jax.make_array_from_process_local_data``.
 
-This module is exercised in CI only at process_count == 1 (the driver has a
-single chip); the mesh-building logic itself is covered by the virtual
-multi-device tests in tests/test_sharding.py."""
+Tests run it at process_count == 1 and in a two-process CPU run
+(tests/test_multihost.py); the mesh-building logic itself is covered by the
+virtual multi-device tests in tests/test_sharding.py."""
 
 from __future__ import annotations
 
@@ -37,8 +38,8 @@ def initialize(
 ) -> None:
     """jax.distributed.initialize, tolerating single-process runs.
 
-    With no arguments, relies on the TPU launcher environment (GKE/McJAX
-    style); explicit arguments support bare-metal bring-up."""
+    With no arguments, relies on a cluster launcher that sets the
+    environment JAX reads (e.g. SLURM); on a bare machine pass all three."""
     if num_processes is not None and num_processes <= 1:
         return
     try:
@@ -53,13 +54,14 @@ def initialize(
 
 
 def make_multihost_mesh(n_model_per_host: int = 1) -> Mesh:
-    """Global (batch, model) mesh: model axis within each host's local chips
-    (ICI), batch axis spanning the rest (hosts x remaining chips, DCN)."""
+    """Global (batch, model) mesh: model axis within each host's local
+    cards (NVLink), batch axis spanning the rest (hosts x remaining cards,
+    over the network)."""
     devices = jax.devices()
     n_local = jax.local_device_count()
     if n_model_per_host > n_local:
         raise ValueError(
-            f"n_model_per_host={n_model_per_host} exceeds local chips {n_local}"
+            f"n_model_per_host={n_model_per_host} exceeds local devices {n_local}"
         )
     n_total = len(devices)
     n_model = n_model_per_host

@@ -9,7 +9,7 @@ would hit the recursion limit past ~1000 cliques).
 A chain junction tree with uniform cardinality K is exactly a batched HMM:
 collect = forward scan of masked matvecs, distribute = backward scan, with
 HMM-style per-step rescaling so everything stays in float32 linear space
-(MXU matmuls [B,K]x[K,K]).  jit cost is constant in chain length.
+(matmuls [B,K]x[K,K]).  jit cost is constant in chain length.
 
   F_0 = 1;  F_{k+1}[b,q] = sum_p F_k[b,p] * M_k[b,p] * pot_k[p,q]
   G_m = 1;  G_k[b,p]     = sum_q pot_k[p,q] * M_{k+1}[b,q] * G_{k+1}[b,q]
@@ -198,83 +198,117 @@ def chain_posterior_program(plan: Plan, layout: ChainLayout):
     return fn
 
 
-def chain_posterior_parallel_program(plan: Plan, layout: ChainLayout):
+def chain_posterior_parallel_program(
+    plan: Plan, layout: ChainLayout, mesh=None, axis: str = "batch"
+):
     """Sequence-parallel chain inference: log-depth associative scans.
 
     The sequential forward recurrence F_{k+1} = F_k (M_k ⊙ pot_k) is a
     product of per-step [K, K] matrices; ``jax.lax.associative_scan``
-    computes all prefixes in O(log m) depth, so with the step axis sharded
-    over the mesh the work parallelizes across chips (the SP/ring analog of
-    SURVEY.md §2.3 — XLA inserts the inter-device collectives).  Each
-    partial product is max-normalized inside the (still associative)
-    combine, with log-offsets accumulated, so arbitrarily long chains stay
-    in float32.
+    computes all prefixes in O(log m) depth.  With ``mesh``, the step axis
+    is split in contiguous blocks over ``axis`` (the SP/ring analog of
+    SURVEY.md §2.3): each device scans its own block, the block products
+    are exchanged by two all-gathers of [n, B, K, K], and each device
+    enters its block with the product of the blocks before (forward) and
+    after it (backward) — no other communication.  Each partial product is
+    max-normalized inside the (still associative) combine, with
+    log-offsets accumulated, so arbitrarily long chains stay in float32.
 
     Returns ``fn(A, masks) -> (posteriors stacked [m+1, B, K], logZ [B])``
     — same contract as ``chain_posterior_program`` (use for very long
     chains on multi-device meshes; the sequential scan does K^2 work per
-    step vs K^3 here, so single-chip prefers the sequential program)."""
+    step vs K^3 here, so one card prefers the sequential program).
+    ``A`` may carry identity transitions after its m real steps (padding
+    the step axis to a multiple of the device count): an identity step
+    with an all-ones mask changes no message, so results are exact."""
     m = len(layout.clique_order)
     K = layout.card
+
+    def combine(x, y):
+        ax, sx = x
+        ay, sy = y
+        prod = jnp.einsum("...pq,...qr->...pr", ax, ay, precision="highest")
+        c = jnp.maximum(jnp.max(prod, axis=(-2, -1), keepdims=True), _TINY)
+        return prod / c, sx + sy + jnp.log(c[..., 0, 0])
+
+    def step(v, o, t, fwd):
+        # one normalized vector-matrix step with its log offset
+        v = (jnp.einsum("bp,bpq->bq", v, t, precision="highest") if fwd
+             else jnp.einsum("bpq,bq->bp", t, v, precision="highest"))
+        c = jnp.maximum(jnp.max(v, axis=-1), _TINY)
+        return v / c[:, None], o + jnp.log(c)
+
+    def blocks(T, Tb, Mf):
+        """Posteriors of this block's positions, and the whole chain's
+        forward vector (normalized) with its log offset."""
+        zeros = jnp.zeros(T.shape[:2], dtype=T.dtype)
+        # Pf[j] = T_0 ... T_j, Qb[j] = T'_j ... T'_last within the block.
+        # NOTE: reverse=True associative_scan combines operands in REVERSED
+        # order (a[n-1] ⊕ ... ⊕ a[k]); swapping the combine restores the
+        # forward matrix-product order (verified empirically — see tests).
+        Pf, Sf = jax.lax.associative_scan(combine, (T, zeros), axis=0)
+        Qb, Sb = jax.lax.associative_scan(
+            lambda x, y: combine(y, x), (Tb, zeros), axis=0, reverse=True
+        )
+        if mesh is None:
+            n, d = 1, 0
+            tf, of, tb, ob = Pf[-1:], Sf[-1:], Qb[:1], Sb[:1]
+        else:
+            n, d = mesh.shape[axis], jax.lax.axis_index(axis)
+            tf, of = jax.lax.all_gather((Pf[-1], Sf[-1]), axis)
+            tb, ob = jax.lax.all_gather((Qb[0], Sb[0]), axis)
+        B = T.shape[1]
+        ones = jnp.ones((B, K), dtype=T.dtype)
+        f, fo = ones, jnp.zeros((B,), T.dtype)
+        f_in, g_in = ones, ones
+        for i in range(n):  # blocks before d enter this one (forward)
+            f_in = jnp.where(i == d, f, f_in)
+            f, fo = step(f, fo + of[i], tf[i], True)
+        g = ones
+        for i in reversed(range(n)):  # blocks after d (backward)
+            g_in = jnp.where(i == d, g, g_in)
+            g, _ = step(g, ob[i], tb[i], False)
+        # F at each position (exclusive prefix), G (inclusive suffix)
+        F = jnp.concatenate([
+            f_in[None],
+            jnp.einsum("bp,jbpq->jbq", f_in, Pf[:-1], precision="highest"),
+        ])
+        G = jnp.einsum("jbpq,bq->jbp", Qb, g_in, precision="highest")
+        post = F * Mf * G
+        post = post / jnp.maximum(jnp.sum(post, axis=-1, keepdims=True),
+                                  _TINY)
+        # every device holds the same f, fo: one copy each, block 0's used
+        return post, f[None], fo[None]
+
+    if mesh is not None:
+        from jax.sharding import PartitionSpec as P
+
+        blocks = jax.shard_map(
+            blocks, mesh=mesh, in_specs=(P(axis), P(axis), P(axis)),
+            out_specs=(P(axis), P(axis), P(axis)),
+        )
 
     def fn(A: jnp.ndarray, masks: Dict[int, jnp.ndarray]):
         B = next(iter(masks.values())).shape[0] if masks else 1
         dtype = A.dtype
         chain_pos = {v: k for k, v in enumerate(layout.var_order)}
-        M = jnp.ones((m + 1, B, K), dtype=dtype)
+        M = jnp.ones((A.shape[0] + 1, B, K), dtype=dtype)
         for v, mk in masks.items():
             M = M.at[chain_pos[v]].set(jnp.asarray(mk, dtype=dtype))
-
         # per-step transition matrices T_k[b, p, q] = M_k[b, p] * A_k[p, q]
-        T = M[:-1, :, :, None] * A[:, None, :, :]  # [m, B, K, K]
-
-        def combine(x, y):
-            ax, sx = x
-            ay, sy = y
-            prod = jnp.einsum(
-                "...pq,...qr->...pr", ax, ay, precision="highest"
-            )
-            c = jnp.maximum(
-                jnp.max(prod, axis=(-2, -1), keepdims=True), _TINY
-            )
-            return prod / c, sx + sy + jnp.log(c[..., 0, 0])
-
-        zeros = jnp.zeros(T.shape[:2], dtype=dtype)
-        # forward prefixes: P_k = T_0 ... T_{k-1}; F_k = 1^T P_k
-        Pf, Sf = jax.lax.associative_scan(combine, (T, zeros), axis=0)
-        ones_row = jnp.ones((B, K), dtype=dtype)
-        F_tail = jnp.einsum(
-            "p,mbpq->mbq", jnp.ones((K,), dtype=dtype), Pf,
-            precision="highest",
-        )  # F_{k+1} for k=0..m-1
-        F = jnp.concatenate([ones_row[None], F_tail], axis=0)  # [m+1, B, K]
-        Foff = jnp.concatenate([jnp.zeros((1, B), dtype=dtype), Sf], axis=0)
-
-        # backward suffixes: Q_k = T'_k ... T'_{m-1} with
-        # T'_k[b,p,q] = A_k[p,q] * M_{k+1}[b,q].  NOTE: reverse=True
-        # associative_scan combines operands in REVERSED order
-        # (a[n-1] ⊕ ... ⊕ a[k]); swapping the combine restores the forward
-        # matrix-product order (verified empirically — see tests).
+        # and, backward, T'_k[b, p, q] = A_k[p, q] * M_{k+1}[b, q]
+        T = M[:-1, :, :, None] * A[:, None, :, :]
         Tb = A[:, None, :, :] * M[1:, :, None, :]
-        Qb, Sb = jax.lax.associative_scan(
-            lambda x, y: combine(y, x), (Tb, zeros), axis=0, reverse=True
-        )
-        G_head = jnp.einsum(
-            "mbpq,q->mbp", Qb, jnp.ones((K,), dtype=dtype),
-            precision="highest",
-        )  # G_k for k=0..m-1
-        G = jnp.concatenate([G_head, ones_row[None]], axis=0)
-        Goff = jnp.concatenate([Sb, jnp.zeros((1, B), dtype=dtype)], axis=0)
-
-        post = F * M * G
-        post = post / jnp.maximum(
-            jnp.sum(post, axis=-1, keepdims=True), _TINY
-        )
-
-        zfin = jnp.sum(F[-1] * M[-1], axis=-1)
+        post, f, fo = blocks(T, Tb, M[:-1])
+        f, fo = f[0], fo[0]
+        last = f * M[-1]
+        zfin = jnp.sum(last, axis=-1)
+        post = jnp.concatenate(
+            [post, (last / jnp.maximum(zfin, _TINY)[:, None])[None]]
+        )[: m + 1]
         logz = (
             jnp.where(zfin > 0, jnp.log(jnp.maximum(zfin, _TINY)), -jnp.inf)
-            + Foff[-1]
+            + fo
         )
         return post, logz
 

@@ -9,7 +9,7 @@ data -> structure -> parameters -> exact inference story:
     factors, sizes, values = chow_liu(data, labels, cards)
     eng = jt.create_junction_tree(factors, sizes).engine().set_potentials(values)
 
-TPU-first design: the O(V^2 K^2 N) pairwise-count computation is ONE MXU
+Accelerator-first design: the O(V^2 K^2 N) pairwise-count computation is ONE
 einsum over a one-hot design tensor ([N, V, K] -> [V, V, K, K]), batched
 over observations — no per-pair Python loops (a NumPy pair loop is O(V^2)
 kernel launches; here XLA sees a single contraction it can tile).  The
@@ -28,7 +28,7 @@ def pairwise_counts(data: np.ndarray, cards: Sequence[int]) -> np.ndarray:
     """Joint count tensor [V, V, K, K] from complete data [N, V] (int
     states), K = max cardinality; invalid (padded) state cells are zero.
 
-    One one-hot einsum on device — the whole pair sweep is a single MXU
+    One one-hot einsum on device — the whole pair sweep is a single
     contraction."""
     import jax
     import jax.numpy as jnp

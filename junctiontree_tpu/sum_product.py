@@ -22,7 +22,7 @@ class SumProduct:
 
     Like the reference (sum_product.py:6-12), the contraction backend is
     pluggable two ways: pass a ``Semiring`` (or its name) for the
-    TPU-compiled paths, or pass any einsum-compatible callable (e.g.
+    compiled paths, or pass any einsum-compatible callable (e.g.
     ``np.einsum``, a custom opt_einsum wrapper) plus default kwargs — the
     callable receives the standard subscripts string and arrays."""
 

@@ -6,7 +6,7 @@ with min-weight tie-break (weight = product of variable sizes over the closed
 neighborhood, construction.py:98-108), maximal-clique extraction with
 subset-reuse (construction.py:260-272), and factor->maxclique assignment.
 
-Differences, by design (TPU-first rebuild, not a port):
+Differences, by design (a compiled-first rebuild, not a port):
   * all variables are pre-interned ints (no string-comparison heap hazard);
   * scores are updated incrementally (only vars whose neighborhood changed are
     rescored) instead of rebuilding a global heap after every elimination

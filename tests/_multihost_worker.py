@@ -6,7 +6,7 @@ Each process brings up jax.distributed via multihost.initialize, builds the
 global (batch, model) mesh with make_multihost_mesh, contributes its local
 shard of a deterministic evidence-mask batch via host_local_batch_to_global,
 and runs the shard_map DP query whose global mean-logZ rides a cross-process
-psum (Gloo on CPU; ICI/DCN on real pods).  Prints ``GSUM <value>`` for the
+psum (Gloo on CPU; NCCL on GPU hosts).  Prints ``GSUM <value>`` for the
 parent test to compare against the single-process oracle."""
 
 import os

@@ -1,7 +1,7 @@
 """Differentiability: the compiled propagation is pure JAX, so gradients of
 the log-partition function with respect to log-potentials are exact expected
 sufficient statistics (normalized clique marginals) — the foundation for
-maximum-likelihood MRF learning on TPU, a capability with no reference
+maximum-likelihood MRF learning on the accelerator, a capability with no reference
 analog (the reference is NumPy-only)."""
 
 import jax

@@ -346,3 +346,62 @@ def test_memory_analysis_and_measured_feasible_batch():
     assert eng.max_feasible_batch(budget_bytes=1 << 30, analysis=over) == 4
     # analytic fallback unchanged: po2, >= 1
     assert eng.max_feasible_batch(budget_bytes=1024) >= 1
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize(
+    "stats,budget",
+    [
+        ({"bytes_limit": 60 << 30, "peak_bytes_in_use": 0}, 30 << 30),
+        ({"bytes_limit": 12 << 30}, 6 << 30),
+        (None, 8 << 30),          # backends that report nothing (CPU)
+        ({}, 8 << 30),
+    ],
+)
+def test_feasibility_budget_follows_device_limit(monkeypatch, stats, budget):
+    import junctiontree_tpu.executor as ex
+
+    monkeypatch.setattr(ex.jax, "devices", lambda: [_FakeDevice(stats)])
+    assert ex.device_memory_budget() == budget
+    factors, sizes = grid_mrf(3, 3)
+    eng = Engine(compile_plan(factors, sizes))
+    assert eng.max_feasible_batch() == eng.max_feasible_batch(
+        budget_bytes=budget)
+
+
+@pytest.mark.parametrize("env", [True, False])
+def test_compilation_cache_dir_choice(monkeypatch, tmp_path, env):
+    """JAX_COMPILATION_CACHE_DIR, where set, is the only cache directory;
+    otherwise the cache lives at the fixed path inside the checkout."""
+    import jax
+
+    from junctiontree_tpu import config as cfg
+
+    old = jax.config.jax_compilation_cache_dir
+    set_dirs = []
+    real_update = jax.config.update
+
+    def spy(name, value):
+        if name == "jax_compilation_cache_dir":
+            set_dirs.append(value)
+        else:
+            real_update(name, value)
+
+    monkeypatch.setattr(jax.config, "update", spy)
+    if env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cfg.enable_compilation_cache("/elsewhere") == str(tmp_path)
+        assert set_dirs == []
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.setattr(cfg, "CHECKOUT_CACHE_DIR", str(tmp_path / "c"))
+        assert cfg.enable_compilation_cache() == str(tmp_path / "c")
+        assert set_dirs == [str(tmp_path / "c")]
+    assert jax.config.jax_compilation_cache_dir == old

@@ -2,8 +2,8 @@
 within bf16 tolerance, f32 outputs, doubled capacity, f32-exact parity paths.
 
 The reference is float64 NumPy throughout and has no notion of a storage
-dtype; this mode is pure TPU-build territory (halved HBM traffic on
-capacity-bound models, f32 MXU accumulation via preferred_element_type)."""
+dtype; this mode exists for the compiled path (halved memory traffic on
+capacity-bound models, f32 accumulation via preferred_element_type)."""
 
 import numpy as np
 import pytest
@@ -81,9 +81,12 @@ def test_bf16_log_engine_unaffected(bf16_config):
 
 
 def test_bf16_big_clique_routed(bf16_config):
-    """A big-clique model routes through the factored contraction with bf16
-    storage (kernel falls back to the f32-accumulating XLA form) and still
-    matches the f32 answer within bf16 tolerance."""
+    """A big-clique model routed through the factored contraction (the
+    tensor-parallel route of Engine.shard_model, here on a 2-way model
+    axis) with bf16 storage still matches the f32 answer within bf16
+    tolerance (the contraction accumulates f32)."""
+    from junctiontree_tpu.parallel.mesh import make_mesh
+
     rng = np.random.default_rng(0)
     nv = 12
     names = [f"v{i}" for i in range(nv)]
@@ -99,18 +102,15 @@ def test_bf16_big_clique_routed(bf16_config):
         m[np.arange(B), rng.integers(0, 2, B)] = 1.0
         masks[n] = m
 
-    old_min = DEFAULT.pallas_min_states
-    DEFAULT.pallas_min_states = 1 << 10
-    try:
-        eng16 = jt.create_junction_tree(factors, sizes).engine()
-        eng16.set_potentials(values)
-        got, logz16 = _posts(eng16, masks)
-        DEFAULT.storage_dtype = "float32"
-        eng32 = jt.create_junction_tree(factors, sizes).engine()
-        eng32.set_potentials(values)
-        want, logz32 = _posts(eng32, masks)
-    finally:
-        DEFAULT.pallas_min_states = old_min
+    mesh = make_mesh(n_batch=1, n_model=2)
+    eng16 = jt.create_junction_tree(factors, sizes).engine()
+    eng16.shard_model(mesh, min_states=1 << 10).set_potentials(values)
+    got, logz16 = _posts(eng16, masks)
+    assert not eng16._tp_notes  # every big-clique step took the route
+    DEFAULT.storage_dtype = "float32"
+    eng32 = jt.create_junction_tree(factors, sizes).engine()
+    eng32.set_potentials(values)
+    want, logz32 = _posts(eng32, masks)
     np.testing.assert_allclose(logz16, logz32, rtol=0, atol=0.05)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, atol=0.02)

@@ -295,9 +295,9 @@ def test_cutset_fused_structural_check_and_parity():
     """_fused_routing is the structural check (level groups collapse on a
     regular star; NOT on the irregular hailfinder-class reduced model —
     42 groups / 43 cliques, structure diversity).  Auto mode always runs
-    the unrolled program (the fused variant measured 0.96x on TPU v5e even
-    on the star — see bench 'cutset fused-vs-unrolled'); forced fused mode
-    stays exact."""
+    the unrolled program (the fused variant's gain is not measured on the
+    GPU — see bench 'cutset fused-vs-unrolled'); forced fused mode stays
+    exact."""
     # regular: v -> hub -> 40 identical leaves; cutting v leaves a star
     n_leaves = 40
     sizes = {"v": 3, "hub": 2}

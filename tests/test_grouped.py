@@ -91,9 +91,8 @@ def test_grouped_matches_engine_einsum_path():
     masks = {k: jnp.asarray(v)
              for k, v in batch_masks_sparse(tree.plan, evs).items()}
 
-    old_g, old_p = DEFAULT.grouped_min_states, DEFAULT.pallas_min_states
+    old_g = DEFAULT.grouped_min_states
     try:
-        DEFAULT.pallas_min_states = 1 << 62
         DEFAULT.grouped_min_states = 2  # force grouped everywhere
         eng = tree.engine().set_potentials(values)
         post_g, logz_g = eng.posterior_batch(masks)
@@ -102,7 +101,7 @@ def test_grouped_matches_engine_einsum_path():
         eng2 = tree.engine().set_potentials(values)
         post_e, logz_e = eng2.posterior_batch(masks)
     finally:
-        DEFAULT.grouped_min_states, DEFAULT.pallas_min_states = old_g, old_p
+        DEFAULT.grouped_min_states = old_g
 
     np.testing.assert_allclose(np.asarray(logz_g), np.asarray(logz_e),
                                rtol=1e-5, atol=1e-6)

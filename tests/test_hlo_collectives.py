@@ -82,18 +82,19 @@ def test_tp_sharded_contraction_has_collectives():
     """Contrast: model-axis TP genuinely communicates (psum over the model
     axis), so collectives must appear — proving the zero count above is a
     property of DP, not an artifact of the counting method."""
-    from junctiontree_tpu.parallel.tp import sharded_factored_contract
+    from junctiontree_tpu.parallel.mesh import make_mesh
+    from junctiontree_tpu.parallel.tp import sharded_clique_message
 
-    n = 4
-    mesh = Mesh(np.array(jax.devices()[:n]), ("model",))
-    R1, R2, C, B = 16, 32, 8, 8
-    pot = jnp.ones((R1, R2, C), jnp.float32)
-    w1 = jnp.ones((B, R1), jnp.float32)
-    w2 = jnp.ones((B, R2), jnp.float32)
+    mesh = make_mesh(n_batch=1, n_model=4)
+    pot = jnp.ones((2,) * 8, jnp.float32)
+    masks = {0: jnp.ones((8, 2), jnp.float32), 5: jnp.ones((8, 2), jnp.float32)}
 
-    def run(pot, w1, w2):
-        return sharded_factored_contract(mesh, pot, w1, w2, shard_batch=False)
+    def run(pot, masks):
+        return sharded_clique_message(mesh, pot, list(range(8)), [2] * 8,
+                                      masks, [7])
 
-    txt = jax.jit(run).lower(pot, w1, w2).compile().as_text()
+    txt = jax.jit(run).lower(pot, masks).compile().as_text()
     counts = count_collectives(txt)
-    assert sum(counts.values()) > 0, counts
+    assert counts["all-reduce"] > 0, counts
+    # the blocks stay where they are: nothing is resharded
+    assert counts["all-to-all"] == counts["all-gather"] == 0, counts

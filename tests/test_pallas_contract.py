@@ -1,65 +1,216 @@
-"""Pallas big-clique kernel tests (interpret mode on CPU; the real-TPU run
-is exercised by bench/TPU sessions)."""
+"""Factored big-clique contraction: the XLA form, its tensor-parallel
+sharding, and the weight-group wrapper (ops/factored.py, parallel/tp.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.sharding import NamedSharding, PartitionSpec
 
-from junctiontree_tpu.ops.pallas_contract import (
+from junctiontree_tpu.ops.factored import (
     big_clique_sep_message,
     build_weight_groups,
-    factored_masked_contract,
     reference_factored_contract,
 )
-
-
-@pytest.mark.parametrize(
-    "R1,R2,C,B", [(4, 8, 3, 5), (8, 128, 128, 256), (3, 50, 17, 33)]
+from junctiontree_tpu.parallel.mesh import MODEL_AXIS, make_mesh
+from junctiontree_tpu.parallel.tp import (
+    local_scopes_cross,
+    sharded_clique_message,
+    split_prefix,
 )
-def test_kernel_matches_reference(R1, R2, C, B):
-    rng = np.random.default_rng(R1 + R2 + C + B)
+
+
+def _operands(R1, R2, C, B, seed):
+    rng = np.random.default_rng(seed)
     pot = jnp.asarray(rng.random((R1, R2, C)), dtype=jnp.float32)
     w1 = jnp.asarray(rng.random((B, R1)), dtype=jnp.float32)
     w2 = jnp.asarray(rng.random((B, R2)), dtype=jnp.float32)
-    got = factored_masked_contract(pot, w1, w2, interpret=True)
-    want = reference_factored_contract(pot, w1, w2)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5
-    )
+    return pot, w1, w2
 
 
-@pytest.mark.parametrize("R1,R2,C,B", [(4, 8, 3, 5), (8, 128, 128, 256)])
-def test_kernel_bf16_inputs_f32_accumulation(R1, R2, C, B):
-    """bf16 storage inputs stream through the kernel at 2 bytes/element;
-    the output is f32 and matches the f32 reference within bf16 tolerance."""
-    rng = np.random.default_rng(R1 + R2 + C + B + 1)
-    pot32 = jnp.asarray(rng.random((R1, R2, C)), dtype=jnp.float32)
-    w132 = jnp.asarray(rng.random((B, R1)), dtype=jnp.float32)
-    w232 = jnp.asarray(rng.random((B, R2)), dtype=jnp.float32)
-    got = factored_masked_contract(
-        pot32.astype(jnp.bfloat16), w132.astype(jnp.bfloat16),
-        w232.astype(jnp.bfloat16), interpret=True,
+def _oracle(pot, w1, w2):
+    return np.einsum("rsc,br,bs->bc", *(np.asarray(x, np.float64)
+                                        for x in (pot, w1, w2)))
+
+
+SHAPES = [
+    (16, 16, 1, 5),
+    (64, 256, 2, 40),
+    (20, 300, 3, 33),
+    (300, 20, 5, 17),
+    (81, 96, 2, 19),
+    (1, 3, 4665, 4),       # degenerate depth-1 factorization, wide separator
+    (256, 512, 1, 8),
+    (64, 2048, 2, 64),     # the 2^18-state clique's marginal step
+]
+
+
+@pytest.mark.parametrize("R1,R2,C,B", SHAPES)
+def test_factored_form_matches_oracle(R1, R2, C, B):
+    pot, w1, w2 = _operands(R1, R2, C, B, R1 + R2 + C + B)
+    got = reference_factored_contract(pot, w1, w2)
+    assert got.shape == (B, C) and got.dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(got), _oracle(pot, w1, w2),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "R1,R2,C,B", [(16, 16, 1, 5), (64, 256, 2, 40), (300, 20, 5, 17)]
+)
+def test_factored_form_bf16_inputs_f32_accumulation(R1, R2, C, B):
+    """bf16 storage inputs come back f32 and match the f32 inputs within
+    bf16 rounding of the operands."""
+    pot, w1, w2 = _operands(R1, R2, C, B, R1 + R2 + C + B + 1)
+    got = reference_factored_contract(
+        pot.astype(jnp.bfloat16), w1.astype(jnp.bfloat16),
+        w2.astype(jnp.bfloat16),
     )
     assert got.dtype == jnp.float32
-    want = reference_factored_contract(pot32, w132, w232)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=3e-2, atol=1e-3
+    np.testing.assert_allclose(np.asarray(got), _oracle(pot, w1, w2),
+                               rtol=3e-2)
+
+
+def _clique_oracle(pot, scope, masks, msgs, out_vars):
+    """float64 einsum of the clique potential with its batched operands."""
+    L = {v: chr(ord("a") + i) for i, v in enumerate(scope)}
+    terms = ["".join(L[v] for v in scope)]
+    ops = [np.asarray(pot, np.float64)]
+    for v, m in masks.items():
+        terms.append("z" + L[v])
+        ops.append(np.asarray(m, np.float64))
+    for vs, t in msgs:
+        terms.append("z" + "".join(L[v] for v in vs))
+        ops.append(np.asarray(t, np.float64))
+    spec = ",".join(terms) + "->z" + "".join(L[v] for v in out_vars)
+    return np.einsum(spec, *ops)
+
+
+# (sizes, masked vars, messages' scopes, output vars): outputs over the
+# split prefix, messages that touch it, mixed cardinalities (on a 4-way axis
+# a leading 3 needs a longer prefix)
+CLIQUES = [
+    ((2,) * 8, [0, 3, 5], [], [7]),
+    ((2,) * 8, [0, 3, 5], [], [1]),
+    ((2,) * 8, [1, 6], [], []),
+    ((2,) * 8, [2], [(0, 4)], [1, 4]),
+    ((3, 2, 2, 4, 2), [0, 4], [(3, 4)], [3, 4]),
+    ((3, 2, 2, 4, 2), [1], [(0, 2)], [0]),
+]
+
+
+MESHES = [
+    (1, 2, False),
+    (1, 4, False),
+    (2, 2, True),      # DP x TP: batch sharded as well
+    (1, 8, False),
+]
+
+
+def _routable(n_model, case):
+    sizes, _, msg_scopes, out_vars = CLIQUES[case]
+    return split_prefix(sizes, n_model) is not None and not (
+        local_scopes_cross(list(range(len(sizes))), n_model, sizes,
+                           out_vars, msg_scopes))
+
+
+@pytest.mark.parametrize(
+    "n_batch,n_model,shard_batch,case",
+    [m + (c,) for m in MESHES for c in range(len(CLIQUES))
+     if _routable(m[1], c)],
+)
+def test_tp_contract_matches_oracle(n_batch, n_model, shard_batch, case):
+    """The clique message computed where the model axis holds each block
+    of the flat potential (shard_map + psum) equals the single-device
+    float64 oracle (every mesh and clique the router sends this way)."""
+    sizes, masked, msg_scopes, out_vars = CLIQUES[case]
+    scope = list(range(len(sizes)))
+    rng = np.random.default_rng(case + n_model)
+    B = 4 * n_batch
+    pot = rng.random(sizes) + 0.1
+    masks = {v: jnp.asarray(rng.random((B, sizes[v])), jnp.float32)
+             for v in masked}
+    msgs = [(vs, jnp.asarray(rng.random((B,) + tuple(sizes[v] for v in vs)),
+                             jnp.float32)) for vs in msg_scopes]
+    mesh = make_mesh(n_batch=n_batch, n_model=n_model)
+    flat = jax.device_put(
+        jnp.asarray(pot.reshape(-1), jnp.float32),
+        NamedSharding(mesh, PartitionSpec(MODEL_AXIS)))
+    got = sharded_clique_message(mesh, flat, scope, list(sizes), masks,
+                                 out_vars, msgs, shard_batch=shard_batch)
+    want = _clique_oracle(pot.astype(np.float32), scope, masks, msgs,
+                          out_vars)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "sizes,n,k",
+    [((2,) * 8, 4, 2), ((2,) * 8, 8, 3), ((3, 2, 2), 4, 3), ((4, 2), 4, 1),
+     ((3, 3, 3), 2, None), ((4096, 2), 8192, None)],
+)
+def test_split_prefix(sizes, n, k):
+    """The shortest run of leading variables whose states the axis size
+    divides; none where no prefix up to MAX_PREFIX_STATES states does."""
+    assert split_prefix(sizes, n) == k
+
+
+def test_local_scopes_cross_merges_the_prefix():
+    """A message over a prefix variable and an output variable crosses the
+    separator on one card but not once the prefix is one local variable
+    (the sum over the unwanted prefix variable runs after the psum)."""
+    scope = list(range(6))
+    assert local_scopes_cross(scope, 4, [2] * 6, [1, 5], [(0, 5)]) is False
+    assert local_scopes_cross(scope, 4, [2] * 6, [5], [(0, 5)]) is True
+    assert local_scopes_cross(scope, 4, [2] * 6, [5], [(3, 4)]) is False
+
+
+def test_float64_operands_accumulate_f32():
+    """f64 test configs go through the same einsum, accumulated in f32."""
+    rng = np.random.default_rng(29)
+    sizes = (2,) * 9
+    pot = jnp.asarray(rng.random(sizes), dtype=jnp.float64)
+    masks = {
+        v: jnp.asarray(rng.random((3, 2)), dtype=jnp.float64)
+        for v in range(8)
+    }
+    got = big_clique_sep_message(pot, list(range(9)), masks, [8])
+    want = jnp.einsum("abcdefghi,xa,xb,xc,xd,xe,xf,xg,xh->xi", pot,
+                      *[masks[v] for v in range(8)])
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_obs", [4, 8])
+def test_weight_groups_balance_the_rest_axes(n_obs, monkeypatch):
+    """The factored contraction covers the whole clique (R1*R2*C states)
+    with the observed rest vars split evenly between W1 and W2, and its
+    result is the answer."""
+    import junctiontree_tpu.ops.factored as fc
+
+    rng = np.random.default_rng(31)
+    n = 11
+    pot = jnp.asarray(rng.random((2,) * n), dtype=jnp.float32)
+    B = 5
+    masks = {v: jnp.asarray(rng.random((B, 2)), dtype=jnp.float32)
+             for v in range(n_obs)}
+    seen = []
+
+    def contract(p3, w1, w2):
+        seen.append((p3.shape, w1.shape, w2.shape))
+        return reference_factored_contract(p3, w1, w2)
+
+    monkeypatch.setattr(fc, "reference_factored_contract", contract)
+    got = big_clique_sep_message(pot, list(range(n)), masks, [n - 1])
+    (R1, R2, C), w1s, w2s = seen[0]
+    assert R1 * R2 * C == 2 ** n and C == 2
+    assert w1s == (B, R1) and w2s == (B, R2)
+    assert R1 == 2 ** (n_obs // 2)  # half of the observed rest vars
+    letters = "abcdefghijk"
+    want = jnp.einsum(
+        letters + "," + ",".join("x" + letters[v] for v in range(n_obs))
+        + "->xk", pot, *[masks[v] for v in range(n_obs)],
+        precision="highest",
     )
-
-
-def test_plan_tiles_bf16_itemsize():
-    """2-byte inputs double the VMEM headroom (bigger feasible tiles) and
-    keep Mosaic-legal (16, 128) alignment."""
-    from junctiontree_tpu.ops.pallas_contract import plan_tiles
-
-    f32 = plan_tiles(64, 512, 4096, 4096, itemsize=4)
-    b16 = plan_tiles(64, 512, 4096, 4096, itemsize=2)
-    assert b16 is not None
-    if f32 is not None:
-        assert b16["vmem_bytes"] <= f32["vmem_bytes"] * 2
-        assert (b16["TB"] * b16["TC"] >= f32["TB"] * f32["TC"])
-    assert b16["TB"] % 128 == 0 or b16["TB"] == b16["Bp"]
-    assert b16["TC"] % 16 == 0 or b16["TC"] == b16["Cp"]
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5)
 
 
 def test_build_weight_groups_balanced():
@@ -95,7 +246,7 @@ def test_big_clique_sep_message_matches_einsum():
         14: jnp.asarray(rng.random((B, 3)), dtype=jnp.float32),
     }
     got = big_clique_sep_message(
-        pot, cvars, masks, svars, interpret=True
+        pot, cvars, masks, svars
     )
     want = jnp.einsum(
         "abcde,xa,xc,xe->xde",
@@ -112,7 +263,7 @@ def test_big_clique_sep_message_no_rest_masks():
     cvars = [0, 1, 2]
     pot = jnp.asarray(rng.random((2, 3, 4)), dtype=jnp.float32)
     masks = {2: jnp.asarray(rng.random((6, 4)), dtype=jnp.float32)}
-    got = big_clique_sep_message(pot, cvars, masks, [2], interpret=True)
+    got = big_clique_sep_message(pot, cvars, masks, [2])
     want = jnp.einsum("abc,xc->xc", pot, masks[2], precision="highest")
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-6
@@ -140,7 +291,7 @@ def test_big_clique_sep_message_with_messages():
     m45 = jnp.asarray(rng.random((B, 3, 2)), dtype=jnp.float32)
     msgs = [((1, 2), m12), ((2, 3), m23), ((4, 5), m45)]
     got = big_clique_sep_message(
-        pot, cvars, masks, svars, msgs=msgs, interpret=True
+        pot, cvars, masks, svars, msgs=msgs
     )
     want = jnp.einsum(
         "abcdef,xa,xbc,xcd,xe,xef->xef",
@@ -155,7 +306,6 @@ def test_big_clique_sep_message_with_messages():
     got2 = big_clique_sep_message(
         pot, cvars, masks, svars,
         msgs=[((1, 2), m12), ((2, 3), m23), ((5, 4), m54)],
-        interpret=True,
     )
     np.testing.assert_allclose(
         np.asarray(got2), np.asarray(want), rtol=1e-5, atol=1e-6
@@ -168,76 +318,19 @@ def test_big_clique_message_crossing_boundary_raises():
     msg = jnp.asarray(rng.random((5, 3, 4)), dtype=jnp.float32)
     with pytest.raises(ValueError, match="crosses"):
         big_clique_sep_message(
-            pot, [0, 1, 2], {}, [2], msgs=[((1, 2), msg)], interpret=True
+            pot, [0, 1, 2], {}, [2], msgs=[((1, 2), msg)]
         )
 
 
-def test_plan_tiles_hailfinder_shape_fits_vmem():
-    """The round-2 VMEM-OOM repro: R1=1, R2=3, C=46656 at B=4096 (the
-    Hailfinder-class big separator).  The planner must either tile C into
-    VMEM-sized blocks or report infeasibility — never an untiled [B, C]
-    output block (114 MB at these dims, BENCH_r02.json)."""
-    from junctiontree_tpu.ops.pallas_contract import VMEM_BUDGET, plan_tiles
-
-    t = plan_tiles(1, 3, 46656, 4096)
-    assert t is not None
-    assert t["vmem_bytes"] <= VMEM_BUDGET
-    assert t["TC"] < 46656  # the separator axis is streamed in tiles
-    # the accounting covers the out block that blew up in round 2
-    assert t["TB"] * t["TC"] * 4 <= VMEM_BUDGET
-
-
-def test_plan_tiles_infeasible_returns_none():
-    from junctiontree_tpu.ops.pallas_contract import plan_tiles
-
-    # R2 too wide for any pot block at TR1=1, TC=128
-    assert plan_tiles(1, 40000, 130, 64) is None
-
-
-def test_kernel_c_tiling_matches_reference():
-    """Force the TC-tiled grid with a small VMEM budget and check exactness
-    against the einsum oracle (including non-multiple C padding)."""
-    from junctiontree_tpu.ops.pallas_contract import plan_tiles
-
-    rng = np.random.default_rng(17)
-    R1, R2, C, B = 4, 16, 300, 24
-    budget = 64 * 1024
-    t = plan_tiles(R1, R2, C, B, vmem_budget=budget)
-    assert t is not None and t["TC"] < C and t["Cp"] > C
-    pot = jnp.asarray(rng.random((R1, R2, C)), dtype=jnp.float32)
-    w1 = jnp.asarray(rng.random((B, R1)), dtype=jnp.float32)
-    w2 = jnp.asarray(rng.random((B, R2)), dtype=jnp.float32)
-    got = factored_masked_contract(
-        pot, w1, w2, interpret=True, vmem_budget=budget
-    )
-    want = reference_factored_contract(pot, w1, w2)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5
-    )
-
-
-def test_infeasible_shape_falls_back_to_xla():
-    """use_pallas=True on a VMEM-infeasible factorization must route to the
-    XLA einsum instead of emitting an uncompilable kernel (round-2 defect)."""
+def test_depth_one_factorization():
+    """No observed rest var: W1 is a unit column, the contraction is one
+    plain reduction onto the separator."""
     rng = np.random.default_rng(19)
-    sizes = (40000, 130)
+    sizes = (400, 130)
     pot = jnp.asarray(rng.random(sizes, np.float64), dtype=jnp.float32)
     masks = {1: jnp.asarray(rng.random((3, 130)), dtype=jnp.float32)}
-    got = big_clique_sep_message(pot, [0, 1], masks, [1], use_pallas=True)
+    got = big_clique_sep_message(pot, [0, 1], masks, [1])
     want = jnp.einsum("ab,xb->xb", pot, masks[1], precision="highest")
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5
     )
-
-
-def test_xla_fallback_matches():
-    rng = np.random.default_rng(7)
-    cvars = [0, 1, 2, 3]
-    pot = jnp.asarray(rng.random((2, 3, 4, 2)), dtype=jnp.float32)
-    masks = {
-        0: jnp.asarray(rng.random((5, 2)), dtype=jnp.float32),
-        1: jnp.asarray(rng.random((5, 3)), dtype=jnp.float32),
-    }
-    a = big_clique_sep_message(pot, cvars, masks, [3], interpret=True)
-    b = big_clique_sep_message(pot, cvars, masks, [3], use_pallas=False)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5)

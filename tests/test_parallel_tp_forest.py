@@ -8,38 +8,43 @@ import pytest
 
 import junctiontree_tpu as jt
 from junctiontree_tpu.models import grid_mrf_model
-from junctiontree_tpu.ops.pallas_contract import reference_factored_contract
+from junctiontree_tpu.ops.factored import big_clique_sep_message
 from junctiontree_tpu.parallel.forest import ForestEngine, split_components
 from junctiontree_tpu.parallel.mesh import make_mesh
-from junctiontree_tpu.parallel.tp import sharded_factored_contract
+from junctiontree_tpu.parallel.tp import sharded_clique_message
 
 from .util import brute_force_marginals, random_values
 
 
-def test_sharded_factored_contract_matches_local():
-    rng = np.random.default_rng(4)
-    R1, R2, C, B = 32, 64, 16, 16
-    pot = jnp.asarray(rng.random((R1, R2, C)), dtype=jnp.float32)
-    w1 = jnp.asarray(rng.random((B, R1)), dtype=jnp.float32)
-    w2 = jnp.asarray(rng.random((B, R2)), dtype=jnp.float32)
+def _clique(seed, B, nv=9):
+    rng = np.random.default_rng(seed)
+    pot = jnp.asarray(rng.random((2,) * nv), dtype=jnp.float32)
+    masks = {v: jnp.asarray(rng.random((B, 2)), dtype=jnp.float32)
+             for v in (0, 2, 5, 7)}
+    return pot, masks
 
-    want = np.asarray(reference_factored_contract(pot, w1, w2))
+
+def test_sharded_clique_message_matches_local():
+    """Batch sharded as well (DP x TP): every 2D mesh gives the one-device
+    factored contraction's answer."""
+    pot, masks = _clique(4, 16)
+    want = np.asarray(big_clique_sep_message(pot, list(range(9)), masks,
+                                             [1, 8]))
     for n_batch, n_model in [(4, 2), (2, 4), (1, 8)]:
         mesh = make_mesh(n_batch=n_batch, n_model=n_model)
-        got = np.asarray(sharded_factored_contract(mesh, pot, w1, w2))
+        got = np.asarray(sharded_clique_message(
+            mesh, pot, list(range(9)), [2] * 9, masks, [1, 8],
+            shard_batch=True))
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-def test_sharded_factored_contract_unsharded_batch():
-    rng = np.random.default_rng(5)
-    pot = jnp.asarray(rng.random((8, 8, 4)), dtype=jnp.float32)
-    w1 = jnp.asarray(rng.random((5, 8)), dtype=jnp.float32)
-    w2 = jnp.asarray(rng.random((5, 8)), dtype=jnp.float32)
-    mesh = make_mesh(n_batch=1, n_model=8)
-    got = np.asarray(
-        sharded_factored_contract(mesh, pot, w1, w2, shard_batch=False)
-    )
-    want = np.asarray(reference_factored_contract(pot, w1, w2))
+def test_sharded_clique_message_unsharded_batch():
+    """A batch the batch axis does not divide stays whole on each device."""
+    pot, masks = _clique(5, 5)
+    mesh = make_mesh(n_batch=2, n_model=4)
+    got = np.asarray(sharded_clique_message(
+        mesh, pot, list(range(9)), [2] * 9, masks, [], shard_batch=True))
+    want = np.asarray(big_clique_sep_message(pot, list(range(9)), masks, []))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 

@@ -324,3 +324,40 @@ class TestKBest:
         assert len(got) == 2 and got[0][1] >= got[1][1]
         _, s0 = eng.map_assignment()
         assert got[0][1] == pytest.approx(s0, abs=1e-5)
+
+
+@pytest.mark.parametrize("n,n_dev", [(62, 8), (30, 4), (47, 2)])
+def test_shard_sequence_pads_uneven_step_counts(n, n_dev):
+    """A chain whose step count is not a multiple of the device count is
+    padded with identity transitions, so every device still holds a shard
+    and the posteriors stay exact."""
+    from junctiontree_tpu.executor import Engine
+    from junctiontree_tpu.parallel.mesh import make_mesh
+
+    factors, sizes, values = chain_bn_model(n, seed=n)
+    tree = jt.create_junction_tree(factors, sizes)
+    B = 3
+    rng = np.random.default_rng(n)
+    masks = {}
+    for name in ("x1", f"x{n - 2}"):
+        m = np.zeros((B, 2), dtype=np.float32)
+        m[np.arange(B), rng.integers(0, 2, B)] = 1.0
+        masks[name] = m
+    post_ref, logz_ref = Engine(tree.plan).set_potentials(
+        values).posterior_batch(masks)
+
+    sp_eng = Engine(tree.plan).set_potentials(values)
+    sp_eng.shard_sequence(make_mesh(n_batch=n_dev, n_model=1), min_len=8)
+    post_sp, logz_sp = sp_eng.posterior_batch(masks)
+    shards = sp_eng._chain_A.addressable_shards
+    assert len({s.device for s in shards}) == n_dev
+    steps = n - 1
+    assert sp_eng._chain_A.shape[0] == steps + (-steps) % n_dev
+    np.testing.assert_allclose(
+        np.asarray(logz_sp), np.asarray(logz_ref), rtol=1e-5
+    )
+    for v in range(tree.plan.num_vars):
+        np.testing.assert_allclose(
+            np.asarray(post_sp[v]), np.asarray(post_ref[v]),
+            rtol=1e-4, atol=1e-6,
+        )

@@ -88,6 +88,96 @@ def brute_force_max_marginals(
     return out
 
 
+# ---------- oracle #2: plain NumPy propagation over a plan's tree ----------
+
+def _np_contract(ops, op_vars, out_vars, mode):
+    """Product of ``ops`` (axes labelled by ``op_vars``) reduced onto
+    ``out_vars`` by sum (np.einsum) or max, in float64."""
+    labels: Dict[int, int] = {}
+    for vs in list(op_vars) + [out_vars]:
+        for v in vs:
+            labels.setdefault(v, len(labels))
+    args = []
+    for op, vs in zip(ops, op_vars):
+        args += [np.asarray(op, dtype=np.float64), [labels[v] for v in vs]]
+    if mode == "sum":
+        return np.einsum(*args, [labels[v] for v in out_vars], optimize=True)
+    union = sorted(labels.values())
+    full = np.einsum(*args, union, optimize=False)
+    red = tuple(i for i in union if i not in {labels[v] for v in out_vars})
+    m = full.max(axis=red) if red else full
+    kept = [i for i in union if i not in red]
+    return np.transpose(m, [kept.index(labels[v]) for v in out_vars])
+
+
+def numpy_tree_propagate(plan, values, evidence=None, mode="sum"):
+    """Two-pass message passing over ``plan``'s junction tree in float64
+    NumPy, independent of the compiled programs (it shares only the plan).
+
+    Evidence {label: state} is applied by multiplying one-hot masks into
+    the clique potentials.  ``mode="sum"`` returns (normalized per-variable
+    marginals indexed by var id, log Z); ``mode="max"`` returns (per-variable
+    max-marginals, log of the largest joint value under the evidence)."""
+    cv = [list(c) for c in plan.clique_vars]
+    sizes = plan.sizes
+    tree = plan.tree
+    pots = [np.ones(tuple(sizes[v] for v in c)) for c in cv]
+    scale = 1.0
+    for f, (fv, val) in enumerate(zip(plan.factors, values)):
+        c = plan.tri.factor_to_maxclique[f]
+        if c < 0:
+            scale *= float(np.asarray(val))
+            continue
+        pots[c] = _np_contract([pots[c], val], [cv[c], list(fv)], cv[c], "sum")
+    for label, state in (evidence or {}).items():
+        v = plan.table.id_of(label)
+        c = plan.var_to_clique[v]
+        hot = np.zeros(sizes[v])
+        hot[int(state)] = 1.0
+        pots[c] = _np_contract([pots[c], hot], [cv[c], [v]], cv[c], "sum")
+
+    def sep(s):
+        return list(tree.separators[s])
+
+    up: Dict[int, np.ndarray] = {}
+    for c in reversed(tree.topo_order):
+        if tree.parent[c] < 0:
+            continue
+        kids = tree.children[c]
+        up[c] = _np_contract(
+            [pots[c]] + [up[k] for k, _ in kids],
+            [cv[c]] + [sep(s) for _, s in kids],
+            sep(tree.parent_sep[c]), mode,
+        )
+    down: Dict[int, np.ndarray] = {}
+    beliefs: List[np.ndarray] = [None] * len(cv)
+    for c in tree.topo_order:
+        kids = tree.children[c]
+        base_ops, base_vs = [pots[c]], [cv[c]]
+        if tree.parent[c] >= 0:
+            base_ops.append(down[c])
+            base_vs.append(sep(tree.parent_sep[c]))
+        beliefs[c] = _np_contract(
+            base_ops + [up[k] for k, _ in kids],
+            base_vs + [sep(s) for _, s in kids], cv[c], mode,
+        )
+        for k, s in kids:  # leave-one-out down-message to child k
+            others = [(o, so) for o, so in kids if o != k]
+            down[k] = _np_contract(
+                base_ops + [up[o] for o, _ in others],
+                base_vs + [sep(so) for _, so in others], sep(s), mode,
+            )
+    root = beliefs[tree.root]
+    total = (root.sum() if mode == "sum" else root.max()) * scale
+    margs = []
+    for v in range(plan.num_vars):
+        c = plan.var_to_clique[v]
+        m = _np_contract([beliefs[c]], [cv[c]], [v], mode) * scale
+        margs.append(m / m.sum() if mode == "sum" else m)
+    with np.errstate(divide="ignore"):
+        return margs, float(np.log(total))
+
+
 # ---------- oracle #3: chordality + junction tree properties ----------
 
 def is_chordal(n: int, edges: Set[Tuple[int, int]]) -> bool:
